@@ -23,7 +23,7 @@ import numpy as np
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU-native visual odometry")
+    ap = argparse.ArgumentParser(description="monocular visual odometry")
     ap.add_argument("--config", default=None, help="config JSON path")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--traj", default=None, help="KITTI-format pose output")
@@ -44,19 +44,15 @@ def main(argv=None):
                          "http://127.0.0.1:PORT (0 = pick a free port)")
     args = ap.parse_args(argv)
 
-    import jax
-    # persistent compile cache: repeated runs (and the driver's fresh
-    # processes) skip recompilation
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from ya_vo_tpu.utils import compile_cache
 
-    from ya_vo_tpu.config import VOConfig, TrackConfig, FeatureConfig
+    # repeated runs skip recompilation
+    compile_cache.enable()
+
+    from ya_vo_tpu.config import VOConfig, TrackConfig
     from ya_vo_tpu.tracking.frontend import Frontend
     from ya_vo_tpu.utils import checkpoint as ckpt
-    from ya_vo_tpu.viz import evaluation, render
+    from ya_vo_tpu.viz import evaluation
 
     gt_cw = None
     if args.synthetic:
@@ -154,6 +150,8 @@ def main(argv=None):
 
         save_trajectory_kitti(args.traj, np.linalg.inv(traj))
     if args.plot:
+        from ya_vo_tpu.viz import render
+
         pos, _ = fe.map.alive_landmarks()
         render.plot_trajectory(traj, gt_cw, pos, out_path=args.plot)
     if args.checkpoint:

@@ -11,43 +11,7 @@ from ya_vo_tpu.core import lie
 from ya_vo_tpu.utils import synthetic
 
 
-def make_problem(seed=0, W=5, L=200, noise=0.0, pose_pert=0.02,
-                 lm_pert=0.10, O=256):
-    rng = np.random.default_rng(seed)
-    cam = synthetic.kitti_camera()
-    lms = synthetic.random_landmarks(L, seed=seed)
-    poses = synthetic.forward_trajectory(W, step=0.5)
-    uv, vis = synthetic.project_tracks(lms, poses, cam, 376, 1241, margin=5)
-    if noise > 0:
-        uv = uv + rng.normal(0, noise, uv.shape).astype(np.float32)
-
-    obs_uv = np.zeros((W, O, 2), np.float32)
-    obs_lm = np.full((W, O), -1, np.int32)
-    obs_valid = np.zeros((W, O), bool)
-    for w in range(W):
-        ids = np.nonzero(vis[w])[0][:O]
-        obs_uv[w, : len(ids)] = uv[w, ids]
-        obs_lm[w, : len(ids)] = ids
-        obs_valid[w, : len(ids)] = True
-
-    # perturb everything except the (gauge-fixed) first pose
-    poses_pert = poses.copy()
-    for w in range(1, W):
-        xi = rng.normal(0, pose_pert, 6).astype(np.float32)
-        poses_pert[w] = np.asarray(
-            lie.se3_exp(jnp.asarray(xi))) @ poses_pert[w]
-    lms_pert = lms + rng.normal(0, lm_pert, lms.shape).astype(np.float32)
-
-    prob = window.BAProblem(
-        poses=jnp.asarray(poses_pert),
-        pose_valid=jnp.ones(W, bool),
-        landmarks=jnp.asarray(lms_pert),
-        lm_valid=jnp.ones(L, bool),
-        obs_uv=jnp.asarray(obs_uv),
-        obs_lm=jnp.asarray(obs_lm),
-        obs_valid=jnp.asarray(obs_valid),
-    )
-    return prob, cam, poses, lms
+make_problem = synthetic.window_problem
 
 
 def test_converges_to_ground_truth():

@@ -5,6 +5,7 @@ and a two-view matching smoke on rendered frames."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ya_vo_tpu.features import brief, fast, matching
 from ya_vo_tpu.utils import synthetic
@@ -110,15 +111,36 @@ def test_two_view_matching_rendered():
     assert np.mean(disp < 25.0) > 0.8
 
 
-def test_pallas_hamming_matches_oracle():
-    """Pallas MXU kernel (interpret mode on CPU) == numpy popcount oracle."""
-    from ya_vo_tpu.features.pallas_hamming import hamming_matrix_pallas
+@pytest.mark.parametrize("k1,k2,masked", [
+    (256, 512, False),
+    (2048, 2048, True),     # the production shape, with masked rows/cols
+])
+def test_hamming_matrix_matches_popcount(k1, k2, masked):
+    """matching.hamming_matrix == the numpy byte-popcount reference the
+    device parity check uses, masked entries = INVALID_DIST."""
+    from ya_vo_tpu.utils.parity import popcount_hamming
 
     rng = np.random.default_rng(7)
-    d1 = rng.integers(0, 2**32, (256, 8), dtype=np.uint32)
-    d2 = rng.integers(0, 2**32, (512, 8), dtype=np.uint32)
-    D = np.asarray(hamming_matrix_pallas(jnp.asarray(d1), jnp.asarray(d2)))
+    d1 = rng.integers(0, 2**32, (k1, 8), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (k2, 8), dtype=np.uint32)
+    d2[: k2 // 4] = d1[: k2 // 4] ^ (1 << rng.integers(0, 32, (k2 // 4, 8))
+                                      ).astype(np.uint32)   # near matches
+    m1 = rng.uniform(size=k1) > 0.3 if masked else np.ones(k1, bool)
+    m2 = rng.uniform(size=k2) > 0.3 if masked else np.ones(k2, bool)
+    D = np.asarray(matching.hamming_matrix(
+        jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(m1), jnp.asarray(m2)))
+    ref = np.where(m1[:, None] & m2[None, :], popcount_hamming(d1, d2),
+                   matching.INVALID_DIST)
+    np.testing.assert_array_equal(D, ref)
+
+
+def test_popcount_reference_matches_unpackbits():
+    from ya_vo_tpu.utils.parity import popcount_hamming
+
+    rng = np.random.default_rng(8)
+    d1 = rng.integers(0, 2**32, (130, 8), dtype=np.uint32)
+    d2 = rng.integers(0, 2**32, (20, 8), dtype=np.uint32)
     b1 = np.unpackbits(d1.view(np.uint8), axis=1)
     b2 = np.unpackbits(d2.view(np.uint8), axis=1)
-    oracle = (b1[:, None, :] != b2[None, :, :]).sum(-1)
-    np.testing.assert_array_equal(D, oracle)
+    np.testing.assert_array_equal(popcount_hamming(d1, d2),
+                                  (b1[:, None, :] != b2[None, :, :]).sum(-1))

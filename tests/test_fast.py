@@ -1,5 +1,5 @@
-"""FAST detector tests: golden Bresenham geometry (vs the reference repo's
-fixture), contiguity semantics on synthetic patterns, end-to-end detection
+"""FAST detector tests: golden Bresenham geometry (vs the reference's
+midpoint circle construction), contiguity semantics on synthetic patterns, end-to-end detection
 on a rendered scene. Mirrors the useful parts of the reference's
 FastDetectorTest.cc (golden circle check :6-31, synthetic contiguity
 :38-80) with real asserts."""
@@ -12,20 +12,35 @@ from ya_vo_tpu.features import fast
 from ya_vo_tpu.utils import synthetic
 
 
-def test_bresenham_offsets_match_reference_golden():
-    """The 16 ring offsets must equal the reference's golden mask
-    (/root/reference/tests/testBresenham.png: 16 circle pixels + center)."""
-    from PIL import Image
+def _midpoint_circle(r: int):
+    """The radius-r circle by the midpoint construction the reference uses
+    (src/FastDetector.cc:50-112): step one octant, mirror it eight ways."""
+    pts = set()
+    x, y, p = r, 0, 1 - r
+    while x >= y:
+        for a, b in ((x, y), (y, x)):
+            pts |= {(sa * a, sb * b) for sa in (1, -1) for sb in (1, -1)}
+        y += 1
+        if p <= 0:
+            p += 2 * y + 1
+        else:
+            x -= 1
+            p += 2 * y - 2 * x + 1
+    return pts
 
-    img = np.asarray(Image.open("/root/reference/tests/testBresenham.png"))
-    if img.ndim == 3:
-        img = img[..., 0]
-    ys, xs = np.nonzero(img)
-    cy, cx = int(round(ys.mean())), int(round(xs.mean()))
-    golden = {(y - cy, x - cx) for y, x in zip(ys, xs)} - {(0, 0)}
-    ours = {(int(dv), int(du)) for dv, du in fast.BRESENHAM_OFFSETS}
-    assert ours == golden
-    assert len(ours) == 16
+
+def test_bresenham_offsets_match_reference_golden():
+    """The 16 ring offsets are the reference's radius-3 circle, ordered
+    clockwise from 12 o'clock with each step to an 8-neighbour (the
+    contiguity test walks the ring in this order)."""
+    ours = [(int(dv), int(du)) for dv, du in fast.BRESENHAM_OFFSETS]
+    assert len(set(ours)) == 16
+    assert set(ours) == _midpoint_circle(3)
+    assert ours[0] == (-3, 0)
+    ang = np.unwrap([np.arctan2(du, -dv) for dv, du in ours])
+    assert np.all(np.diff(ang) > 0)
+    for (a, b), (c, d) in zip(ours, ours[1:] + ours[:1]):
+        assert max(abs(a - c), abs(b - d)) == 1
 
 
 def _ring_image(on_indices, center_val=100, ring_val=200, size=50):
@@ -113,28 +128,24 @@ def test_rendered_scene_detection():
     assert np.all(np.diff(sc) <= 1e-3)
 
 
-def test_pallas_score_map_matches_jnp():
-    """Fused Pallas score kernel (interpret mode on CPU) == jnp pipeline on
-    the interior (borders differ only in wrap source, masked anyway)."""
-    from ya_vo_tpu.features import pallas_fast
-
+@pytest.mark.parametrize("threshold,arc", [(20.0, 12), (40.0, 9)])
+def test_fast_response_matches_brute_force(threshold, arc):
+    """fast_response == a per-pixel numpy segment test (the reference's
+    checkContiguousPixels, src/FastDetector.cc:135-153) on a rendered
+    frame, away from the 3-pixel border the ring wraps across."""
     imgs, *_ = synthetic.render_sequence(
         n_frames=1, n_landmarks=80, height=128, width=256, seed=4)
-    img_f = jnp.asarray(imgs[0], jnp.float32)
-
-    is_corner = fast.fast_response(img_f, 40.0, 12)
-    harris = fast.harris_response(img_f, 0.04)
-    keep_ref = is_corner & fast._nms(
-        jnp.where(is_corner, harris, -jnp.inf), 3)
-
-    smap = pallas_fast.fast_score_map(
-        img_f, threshold=40.0, arc_length=12, harris_k=0.04, nms_radius=3)
-    keep_pal = smap > pallas_fast.NEG / 2
-
-    interior = np.zeros((128, 256), bool)
-    interior[16:-16, 16:-16] = True
-    np.testing.assert_array_equal(
-        np.asarray(keep_pal) & interior, np.asarray(keep_ref) & interior)
-    sel = np.asarray(keep_ref) & interior
-    np.testing.assert_allclose(
-        np.asarray(smap)[sel], np.asarray(harris)[sel], rtol=1e-5)
+    img = imgs[0].astype(np.float32)
+    got = np.asarray(fast.fast_response(jnp.asarray(img), threshold, arc))
+    want = np.zeros_like(got)
+    for v in range(3, 125):
+        for u in range(3, 253):
+            c = img[v, u]
+            ring = np.array([img[v + dv, u + du]
+                             for dv, du in fast.BRESENHAM_OFFSETS])
+            for side in (ring > c + threshold, ring < c - threshold):
+                if any(all(side[(k + i) % 16] for i in range(arc))
+                       for k in range(16)):
+                    want[v, u] = True
+    assert want.sum() > 20
+    np.testing.assert_array_equal(got[3:-3, 3:-3], want[3:-3, 3:-3])

@@ -1,4 +1,4 @@
-"""ya_vo_tpu: TPU-native visual odometry (see README.md).
+"""ya_vo_tpu: monocular visual odometry in JAX (see README.md).
 
 Public API convenience exports; submodules remain importable directly.
 """

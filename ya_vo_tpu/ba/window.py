@@ -4,7 +4,7 @@ landmark marginalization, fully batched.
 The reference never finished BA: `Optimizer::partialBA` builds a g2o
 optimizer but the edge-adding and optimize calls are commented out
 (reference: src/Optimizer.cc:17-71; README.md:7 lists "Add online full BA"
-as a to-do). This module implements it the TPU way:
+as a to-do). This module implements it as fixed-shape array math:
 
   * observations live in fixed-shape arrays [W, O] (W keyframes x O obs
     slots, landmark links as int32 indices);
@@ -18,7 +18,7 @@ as a to-do). This module implements it the TPU way:
 
 Gauge: the first pose is frozen (its 6x6 block is pinned to identity and
 its update zeroed); Levenberg damping handles the residual monocular scale
-freedom. All contractions pin float32 accumulation for the TPU MXU.
+freedom. All contractions pin float32 accumulation (no TF32 rounding).
 
 The distributed variant (landmark shards x psum over the reduced system)
 lives in ya_vo_tpu.parallel.dist_ba and reuses `_build_terms` /
@@ -233,9 +233,8 @@ def solve_window(
 
     Early-exits (lax.while_loop) once the relative cost decrease of an
     iteration falls below `rel_tol`: a well-tracked window is usually
-    near-converged already, and each GN iteration costs ~6 ms on a v5e —
-    paying 8 of them to confirm convergence tripled the per-keyframe BA
-    cost for nothing.
+    near-converged already, and paying all 8 iterations to confirm
+    convergence multiplies the per-keyframe BA cost for nothing.
 
     `pose_prior_weight` is a TRUST REGION anchoring every pose to its
     INPUT value: a quadratic prior w/2 * ||log(T T_init^-1)||^2 added to
@@ -258,7 +257,8 @@ def solve_window(
 def _solve_window(prob, cam, *, iters, huber_delta, damping, n_fixed_poses,
                   rel_tol, pose_prior_weight) -> BAResult:
     # full f32 matmul precision (set by the wrapper): normal equations and
-    # Schur complements cancel heavily; bf16 input rounding stalls GN
+    # Schur complements cancel heavily; reduced-precision input rounding
+    # stalls GN
     L = prob.landmarks.shape[0]
     W = prob.poses.shape[0]
 

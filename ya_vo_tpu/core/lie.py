@@ -1,6 +1,6 @@
 """SO(3) / SE(3) Lie-group operations in pure jnp.
 
-TPU-native replacement for the reference's Sophus usage (reference:
+Pure-jnp replacement for the reference's Sophus usage (reference:
 include/Optimizer.hpp:51-57 `VertexPose::oplusImpl` uses a *left*-multiplicative
 se(3) update `T <- exp(dx) * T`; src/LoopHandler.cc:619-648 composes SE3 poses
 and inverses). Everything here is batched: all ops broadcast over leading axes

@@ -28,7 +28,7 @@ def make_offsets(n_bits: int = 256, patch_radius: int = 8, seed: int = 42):
     BriefDescriptor.cc:10-19).
 
     Returned as a HOST numpy array: `describe` unrolls the test table into
-    statically-shifted image views at trace time (the TPU-fast path), so the
+    statically-shifted image views at trace time, so the
     offsets must be Python ints when tracing."""
     rng = np.random.default_rng(seed)
     offs = rng.integers(-patch_radius, patch_radius + 1, size=(n_bits, 4))
@@ -45,12 +45,10 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> jnp.ndarray:
 def gaussian_blur(img_f32: jnp.ndarray, ksize: int = 9, sigma: float = 2.5):
     """Separable Gaussian blur on [H, W] float32 (SAME zero padding).
 
-    Implemented as 2 x ksize statically-shifted multiply-adds (pure VPU
-    elementwise work, ~34 MB of HBM traffic at 9 taps) rather than
-    `lax.conv`: a single-channel [1, 1, H, W] conv maps onto the MXU with a
-    contraction depth of 1, wasting the systolic array — measured 3.7 ms
-    (bf16) / 10 ms (under the pipeline's f32 matmul-precision scope) vs
-    ~0.3 ms for the shifted-add form, for identical output."""
+    Implemented as 2 x ksize statically-shifted multiply-adds (pure
+    elementwise work that XLA fuses) rather than `lax.conv` with a
+    single-channel [1, 1, H, W] kernel, for identical output. Which form
+    is faster on a GPU is not measured yet."""
     k = gaussian_kernel_1d(ksize, sigma)
     half = ksize // 2
     H, W = img_f32.shape
@@ -73,14 +71,14 @@ def describe(
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Compute descriptors for keypoints on a pre-blurred image.
 
-    TPU-native formulation: instead of gathering 2 x 256 samples per
-    keypoint (K*512 scalar gathers — measured 14 ms/frame on a v5e), build
-    the DENSE descriptor map with 256 statically-shifted full-image
-    compares (one fused VPU pass over the image; the test table is fixed,
-    reference src/BriefDescriptor.cc:4-20) and gather one 8-word row per
-    keypoint (3.7 ms). ~4x faster despite computing descriptors at every
-    pixel — the classic TPU trade of redundant FLOPs for memory locality.
-    Verified bit-identical to the per-keypoint gather formulation.
+    Dense formulation: instead of gathering 2 x 256 samples per keypoint
+    (K*512 scalar gathers), build the DENSE descriptor map with 256
+    statically-shifted full-image compares (one fused elementwise pass
+    over the image; the test table is fixed, reference
+    src/BriefDescriptor.cc:4-20) and gather one 8-word row per keypoint —
+    redundant compares traded for memory locality. Verified bit-identical
+    to the per-keypoint gather formulation; a per-keypoint gather may be
+    the better trade on a GPU (not measured yet).
 
     Args:
       blurred: [H, W] float32 blurred image.

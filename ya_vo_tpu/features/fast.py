@@ -1,18 +1,16 @@
-"""FAST-12 corner detection + Harris ranking, TPU-native.
+"""FAST-12 corner detection + Harris ranking as whole-image array ops.
 
 Replaces the reference's per-pixel scalar implementation (reference:
 src/FastDetector.cc:277-369 — which re-derives the 16-point Bresenham circle
 per pixel via std::set inserts, :50-112, then scans contiguity per pixel,
 :135-153) with whole-image vectorized ops: the 16 ring samples become 16
-shifted views of the image compared in parallel on the VPU; the
+shifted views of the image compared in parallel; the
 12-contiguous test is 11 rolled ANDs over the ring axis; Harris is a pair of
 3x3 convolutions + box filter; the reference's response sort + top-2000 cut
 (src/FastDetector.cc:343-362) becomes `jax.lax.top_k` into a fixed-capacity
 masked keypoint array (static shapes so the whole stage jits once).
-
-A Pallas tiled-kernel variant of the ring test lives in
-`ya_vo_tpu.features.pallas_fast`; this module is the reference-math
-pure-jnp path and the CPU fallback.
+On a GPU, XLA fuses the ring test, Sobel, box filter and NMS window into a
+few passes over a frame that sits in L2.
 """
 
 from __future__ import annotations
@@ -26,8 +24,8 @@ import numpy as np
 
 # The radius-3 Bresenham circle, clockwise from 12 o'clock, as (dv, du) =
 # (row, col) offsets. Same 16-point circle the reference derives per-pixel
-# (src/FastDetector.cc:50-112); the golden test vs tests/testBresenham.png
-# pins these exact offsets.
+# (src/FastDetector.cc:50-112); tests/test_fast.py re-derives the ring with
+# the reference's midpoint construction and pins these exact offsets.
 BRESENHAM_OFFSETS = np.array(
     [
         (-3, 0), (-3, 1), (-2, 2), (-1, 3),
@@ -96,8 +94,8 @@ def fast_response(img_f32: jnp.ndarray, threshold: float, arc_length: int):
 
 
 def _sobel_gradients(img: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """3x3 Sobel via shifted adds (VPU-friendly; replaces the reference's
-    naive O(HW*9) convolve2d, src/FastDetector.cc:164-200)."""
+    """3x3 Sobel via shifted adds (replaces the reference's naive O(HW*9)
+    convolve2d, src/FastDetector.cc:164-200)."""
     def sh(dv, du):
         return _shift2d(img, dv, du)
 
@@ -168,20 +166,9 @@ def detect(
     H, W = img.shape
     img_f = img.astype(jnp.float32)
 
-    if jax.default_backend() == "tpu":
-        # fused one-pass VMEM kernel (ring test + Harris + NMS)
-        from ya_vo_tpu.features import pallas_fast
-
-        smap = pallas_fast.fast_score_map(
-            img_f, threshold=float(threshold), arc_length=arc_length,
-            harris_k=harris_k, nms_radius=nms_radius)
-        keep = smap > pallas_fast.NEG / 2
-        score = smap
-    else:
-        is_corner = fast_response(img_f, float(threshold), arc_length)
-        score = harris_response(img_f, harris_k)
-        keep = is_corner & _nms(
-            jnp.where(is_corner, score, -jnp.inf), nms_radius)
+    is_corner = fast_response(img_f, float(threshold), arc_length)
+    score = harris_response(img_f, harris_k)
+    keep = is_corner & _nms(jnp.where(is_corner, score, -jnp.inf), nms_radius)
 
     vv, uu = jnp.meshgrid(jnp.arange(H), jnp.arange(W), indexing="ij")
     inside = (

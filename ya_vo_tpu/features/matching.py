@@ -1,12 +1,13 @@
-"""Brute-force Hamming descriptor matching as an MXU-friendly contraction.
+"""Brute-force Hamming descriptor matching as one integer matrix product.
 
 The reference does an O(N1*N2*32) scalar triple loop with a bit-twiddling
 popcount (reference: src/BriefDescriptor.cc:163-183 matchFeatures,
-:139-160 hammingDistance/popCount). On TPU the same computation is cast as a
+:139-160 hammingDistance/popCount). Here the same computation is cast as a
 matmul: unpack each 256-bit descriptor to a +-1 int8 vector d in {-1,+1}^256;
 then  hamming(a, b) = (256 - <a, b>) / 2,  so the full N1 x N2 distance
-matrix is one int8 matmul on the MXU (SURVEY.md §7.1 "XOR + popcount
-contraction shaped like an int8 matmul").
+matrix is one int8 x int8 -> int32 product, which a GPU runs on its
+integer tensor cores (SURVEY.md §7.1 "XOR + popcount contraction shaped
+like an int8 matmul").
 
 Match selection and the reference's `d < max(2*minDist, thr)` filter
 (src/BriefDescriptor.cc:213-231, threshold 20 at LoopHandler.cc:537) are
@@ -51,21 +52,13 @@ def hamming_matrix(
     mask1: jnp.ndarray, mask2: jnp.ndarray,
 ) -> jnp.ndarray:
     """[K1, K2] int32 Hamming distances; invalid rows/cols = INVALID_DIST."""
-    K1, K2 = desc1.shape[0], desc2.shape[0]
-    if jax.default_backend() == "tpu" and K1 % 256 == 0 and K2 % 256 == 0:
-        from ya_vo_tpu.features.pallas_hamming import hamming_matrix_pallas
-
-        dist = hamming_matrix_pallas(desc1, desc2)
-    else:
-        n_bits = desc1.shape[1] * 32
-        a = unpack_pm1(desc1)
-        b = unpack_pm1(desc2)
-        dots = jax.lax.dot_general(
-            a, b,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )  # [K1, K2]
-        dist = (n_bits - dots) // 2
+    n_bits = desc1.shape[1] * 32
+    dots = jax.lax.dot_general(
+        unpack_pm1(desc1), unpack_pm1(desc2),
+        dimension_numbers=(((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )  # [K1, K2]
+    dist = (n_bits - dots) // 2
     valid = mask1[:, None] & mask2[None, :]
     return jnp.where(valid, dist, INVALID_DIST)
 

@@ -1,6 +1,6 @@
 """Two-view epipolar geometry: normalized 8-point F/E, decomposition, checks.
 
-TPU-native, fully batched rework of the reference's `_3DHandler`
+Fully batched rework of the reference's `_3DHandler`
 (reference: src/3DHandler.cc). Key correspondences:
 
 * `normalize_points`  <- Hartley normalization (`getMeanVar` 3DHandler.cc:17-25,
@@ -8,7 +8,7 @@ TPU-native, fully batched rework of the reference's `_3DHandler`
 * `eight_point`       <- Nx9 DLT + null vector + rank-2 enforcement
   (`getFundamentalMatrix` 3DHandler.cc:50-142). Batched over hypotheses: the
   null vector comes from eigh of A^T A (9x9, symmetric) instead of SVD of A —
-  same math, TPU-friendlier for large batches.
+  same math, friendlier to large batches.
 * `essential_from_fundamental` <- E = K2^T F K1.
 * `decompose_essential` <- the four (R, t) candidates (`disambiguateRT`
   3DHandler.cc:199-388) via the standard U W V^T construction — NOT the

@@ -86,7 +86,8 @@ def estimate_two_view(
 def _estimate_two_view(uv1, uv2, mask, K, key, *, n_hypotheses, sample_size,
                        inlier_threshold_px) -> TwoViewResult:
     # full f32 matmul precision (set by the public wrapper): epipolar
-    # algebra is catastrophically sensitive to bf16 input rounding
+    # algebra is catastrophically sensitive to reduced-precision input
+    # rounding
     N = uv1.shape[0]
     fmask = mask.astype(uv1.dtype)
 

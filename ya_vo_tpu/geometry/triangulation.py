@@ -4,8 +4,7 @@ Replaces the reference's per-point SVD loop (reference:
 src/LoopHandler.cc:867-885 `triangulation` — 4x4 DLT solved per landmark
 inside a C++ loop, with an INVERTED quality gate, SURVEY.md §2.4.2) with one
 batched eigendecomposition over all correspondences: the null vector of A
-comes from eigh of A^T A (4x4 symmetric — far better batched on TPU than
-SVD), and the quality gate keeps points where the smallest singular value is
+comes from eigh of A^T A (4x4 symmetric — better batched than SVD), and the quality gate keeps points where the smallest singular value is
 well-separated (sigma3/sigma2 < ratio), i.e. the CORRECT orientation of the
 reference's test.
 """
@@ -52,7 +51,8 @@ def triangulate(
 def _triangulate(P1, P2, uv1, uv2, mask, quality_ratio, min_depth,
                  max_depth):
     # full f32 matmul precision (set by the wrapper): DLT depth is a ratio
-    # of near-cancelling terms and bf16 input rounding poisons it
+    # of near-cancelling terms and reduced-precision input rounding
+    # poisons it
     # Build A [..., N, 4, 4] with rows u*P[2]-P[0], v*P[2]-P[1] per view
     u1 = uv1[..., 0]
     v1 = uv1[..., 1]
@@ -108,9 +108,8 @@ def triangulate_fast(
 
     Same 4-row DLT system as `triangulate` but solved with w=1 fixed:
     A[:, :3] X = -A[:, 3], via 3x3 normal equations + Cramer's rule — pure
-    elementwise math, no batched eigh (measured 7.3 ms -> ~0.5 ms for 2048
-    points on a v5e; eigh's batched Jacobi sweeps dominate the fused
-    tracking step otherwise). The w=1 chart loses only points at infinity,
+    elementwise math, no batched eigh (whose iterative sweeps would
+    dominate the fused tracking step). The w=1 chart loses only points at infinity,
     which the depth gates reject anyway. Callers that need the homogeneous
     null vector + sigma-ratio quality gate (two-view bootstrap) keep using
     `triangulate`; hot-path callers gate on reprojection error instead
@@ -137,7 +136,7 @@ def triangulate_fast(
         # 3x3 normal equations G X = h
         G = jnp.einsum("...ki,...kj->...ij", M, M)
         h = jnp.einsum("...ki,...k->...i", M, b)
-        # Cramer's rule via the adjugate (all elementwise on the VPU)
+        # Cramer's rule via the adjugate (all elementwise)
         g00, g01, g02 = G[..., 0, 0], G[..., 0, 1], G[..., 0, 2]
         g11, g12, g22 = G[..., 1, 1], G[..., 1, 2], G[..., 2, 2]
         c00 = g11 * g22 - g12 * g12

@@ -13,8 +13,8 @@ camera system is Schur-reduced —
     gradients, and its PARTIAL reduced camera system S_partial [W,6,W,6],
     b_partial [W,6];
   * one `psum` over the mesh produces the exact global reduced system —
-    the only cross-device traffic is O((6W)^2) floats per GN iteration,
-    riding ICI;
+    the only cross-device traffic is O((6W)^2) floats per GN iteration
+    (an all-reduce over NVLink on a GPU host);
   * the dense [6W, 6W] solve is replicated (cheap); landmark
     back-substitution is local to each shard.
 
@@ -203,7 +203,7 @@ def make_dist_solver(
             b_part = bp - jnp.einsum("lwik,lkm,lm->wi", Wpl, Hll_inv, bl,
                                      preferred_element_type=jnp.float32)
 
-            # ---- THE collective: exact global reduced system over ICI ----
+            # ---- THE collective: exact global reduced system ----
             S = jax.lax.psum(S_part, axis)
             b = jax.lax.psum(b_part, axis)
 
@@ -282,7 +282,7 @@ def make_dist_solver(
     @jax.jit
     def solve(prob: DistBAProblem):
         # full f32 matmul precision: GN normal equations cancel heavily and
-        # the MXU's bf16 input rounding stalls convergence
+        # reduced-precision (TF32) input rounding stalls convergence
         with jax.default_matmul_precision("float32"):
             return mapped(prob.poses, prob.landmarks, prob.lm_valid,
                           prob.obs_uv, prob.obs_valid)
@@ -314,7 +314,7 @@ def make_dist_solver_2d(
     Per GN iteration, per device, the collectives are:
       * psum over kf: per-landmark obs counts, Hll [Ls,3,3], bl [Ls,3]
       * all_gather over kf: Wpl rows [Ls, W, 6, 3] (the dominant transfer —
-        it stays within a kf column of the mesh, i.e. one ICI ring)
+        it stays within a kf column of the mesh)
       * psum over lm + all_gather over kf: reduced camera rows -> S [W6,W6]
       * replicated dense solve, local landmark back-substitution
     `collective_bytes_per_iter` prices these exactly for the scaling bench.
@@ -494,8 +494,7 @@ def collective_bytes_per_iter(
     """Logical collective payload per device per GN iteration, in bytes,
     for the 1-D (n_kf=1) and 2-D solvers. Ring-algorithm wire traffic per
     device is ~2(N-1)/N x payload for all-reduce and (N-1)/N x result for
-    all-gather; both factors are applied in `ring_bytes`. Lets the scaling
-    bench project ICI time on hardware the CI box doesn't have."""
+    all-gather; both factors are applied in `ring_bytes`."""
     f32 = 4
     Ls = L // n_lm
     Wk = W // n_kf

@@ -3,7 +3,7 @@
 The reference has no distributed layer at all (single process + two threads,
 SURVEY.md §5). Here every multi-device feature is expressed against a
 `jax.sharding.Mesh`; the same code runs on 1 chip (trivial mesh), a
-multi-chip host, or a multi-host slice (after `init_multihost`).
+multi-GPU host, or several hosts (after `init_multihost`).
 Tests exercise it on a virtual 8-device CPU mesh
 (xla_force_host_platform_device_count) and on two real OS processes
 (tests/test_multiprocess.py spawns a 2-process jax.distributed cluster).
@@ -59,7 +59,7 @@ def init_multihost(
 
     Three launch modes:
       * single host: call with no args — no-op.
-      * managed launcher (TPU pod slice, SLURM, ...): call with no args
+      * managed launcher (SLURM, ...): call with no args
         AFTER the launcher exported the cluster env; jax.distributed
         auto-detects. We only auto-initialize when such env is present.
       * manual cluster: pass coordinator "host:port" plus num_processes
@@ -90,7 +90,6 @@ def init_multihost(
 
     multiproc = (
         "COORDINATOR_ADDRESS" in env
-        or "TPU_WORKER_HOSTNAMES" in env
         or _int("SLURM_NTASKS") > 1
         or _int("SLURM_NPROCS") > 1
     )

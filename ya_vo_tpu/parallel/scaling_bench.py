@@ -4,14 +4,13 @@ Measures wall-clock per GN iteration of the distributed window BA
 (parallel/dist_ba.py) across mesh shapes, reporting scaling efficiency
 (BASELINE.json config #5: "map blocks sharded across hosts, distributed BA
 via collectives"). Runs on whatever devices are visible — the virtual
-8-device CPU mesh in tests, real chips on a pod slice; the same code path
-covers both (mesh + shard_map + psum/all_gather ride ICI on hardware).
+8-device CPU mesh in tests, the GPUs of a host on hardware; the same code
+path covers both (mesh + shard_map + psum/all_gather, which XLA hands to
+NCCL on GPUs).
 
 Besides measured wall-clock, every row prices the per-device collective
-payload exactly (dist_ba.collective_bytes_per_iter) and projects the ICI
-time on TPU hardware — virtual CPU meshes share host cores, so measured
-"efficiency" there says little about a real slice; the byte accounting is
-what transfers.
+payload exactly (dist_ba.collective_bytes_per_iter). Virtual CPU meshes
+share host cores, so their wall-clock says nothing about a GPU host.
 
 Usage:
     python -m ya_vo_tpu.parallel.scaling_bench [L] [W]
@@ -23,11 +22,6 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
-
-# v5e ICI: ~4.5e10 B/s usable per link direction (one ring hop). A ring
-# collective keeps every link busy, so bytes-on-the-wire / link bandwidth
-# approximates the collective's time; refine with a profile on real chips.
-ICI_BYTES_PER_S = 4.5e10
 
 
 def build_problem(L: int, W: int, seed: int = 0):
@@ -97,8 +91,6 @@ def measure(L: int = 16384, W: int = 8, iters: int = 4,
             "speedup": round(base / dt, 3),
             "efficiency": round(base / dt / n, 3),
             "collective_mb_per_iter": round(coll["ring_bytes"] / 2**20, 3),
-            "projected_ici_ms": round(
-                coll["ring_bytes"] / ICI_BYTES_PER_S * 1e3, 4),
         })
     return rows
 

@@ -41,9 +41,8 @@ def build_pyramid(img_f32: jnp.ndarray, levels: int) -> Tuple[jnp.ndarray, ...]:
     with a 2x2 average (shapes stay static per level).
 
     The 2x2 average is two banded matmuls (A_r @ img @ A_c^T) rather than a
-    strided reshape-mean: stride-2 slicing on the lane dimension forces XLA
-    relayouts (~3 ms/frame measured on a v5e), while the MXU eats the
-    matmuls. HIGHEST precision keeps the average exact in f32."""
+    strided reshape-mean. HIGHEST precision keeps the average exact in
+    f32 (no TF32 rounding of the intensities)."""
     pyr = [img_f32]
     cur = img_f32
     for _ in range(levels - 1):
@@ -172,12 +171,12 @@ def _track_level(
 
 
 def auto_track(*args, **kwargs) -> "FlowResult":
-    """Backend-dispatching LK: the Pallas patch-DMA kernel on TPU (no HBM
-    gathers — see lk_pallas.py), the pure-jnp path elsewhere."""
-    if jax.default_backend() == "tpu":
-        from ya_vo_tpu.tracking import lk_pallas
+    """LK for the default backend: the Triton kernel (`lk_gpu.track`, with
+    its per-block early exit) on a GPU, `track` elsewhere."""
+    if jax.default_backend() == "gpu":
+        from ya_vo_tpu.tracking import lk_gpu
 
-        return lk_pallas.track(*args, **kwargs)
+        return lk_gpu.track(*args, **kwargs)
     return track(*args, **kwargs)
 
 

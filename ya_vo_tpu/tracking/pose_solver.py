@@ -14,8 +14,8 @@ outlier demotion) with a single jitted iteratively-reweighted GN solver:
     reductions; solve; LEFT-multiplicative update T <- exp(dx) T under
     `lax.fori_loop` with Levenberg damping.
 
-All matmul-heavy steps carry explicit f32 accumulation so TPU bf16 MXU
-defaults cannot degrade the normal equations.
+All matmul-heavy steps carry explicit f32 accumulation so reduced-precision
+(TF32) matmul defaults cannot degrade the normal equations.
 """
 
 from __future__ import annotations
@@ -96,9 +96,8 @@ def solve_pose(
       mask: [N] bool valid observations.
       iters: total GN iterations (reference: 4 rounds x 10).
     """
-    # geometry at full f32 matmul precision: the MXU bf16 default rounds
-    # pose/landmark inputs to 8 mantissa bits, flooring the solve accuracy
-    # at ~1-2 px reprojection regardless of iterations
+    # geometry at full f32 matmul precision: reduced-precision inputs
+    # floor the solve accuracy regardless of iterations
     with jax.default_matmul_precision("float32"):
         return _solve_pose(T_init, pts_w, uv, mask, cam, iters=iters,
                            huber_delta=huber_delta,

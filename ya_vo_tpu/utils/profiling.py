@@ -6,8 +6,10 @@ SURVEY.md §5). Here:
 
   * `span()` — wall-clock context manager that forces device completion
     (`block_until_ready` fencing for honest numbers);
-  * `trace()` — wraps `jax.profiler.trace` for real TPU traces viewable in
+  * `trace()` — wraps `jax.profiler.trace` for device traces viewable in
     TensorBoard/XProf;
+  * `device_info()` / `require_gpu()` — name the device every measurement
+    ran on, and refuse to measure without a GPU;
   * `MetricsLog` — structured per-frame metrics accumulation + summary,
     replacing printf-style status lines.
 """
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
@@ -38,6 +41,36 @@ def span(name: str, store: Optional[dict] = None, sync: bool = True):
         dt = (time.perf_counter() - t0) * 1e3
         if store is not None:
             store[name] = store.get(name, 0.0) + dt
+
+
+def gpu_name_and_power_limit() -> str:
+    """`nvidia-smi --query-gpu=name,power.limit` of the first card (a card
+    set below its maximum power runs slower under load, so every number
+    is kept beside this line)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_info() -> dict:
+    """The device as JAX reports it, plus the GPU's name and power limit."""
+    d = jax.devices()[0]
+    info = {"platform": d.platform, "device_kind": d.device_kind,
+            "device_count": len(jax.devices()), "jax": jax.__version__}
+    if d.platform == "gpu":
+        name, limit = gpu_name_and_power_limit().split(",", 1)
+        info.update(gpu_name=name.strip(), power_limit=limit.strip())
+    return info
+
+
+def require_gpu() -> None:
+    """Measurement paths run on a GPU or not at all: a CPU number must
+    never be reported under a device metric."""
+    if jax.default_backend() != "gpu":
+        raise SystemExit(
+            f"no GPU: JAX's default backend is {jax.default_backend()!r}")
 
 
 @contextlib.contextmanager

@@ -212,3 +212,51 @@ def render_sequence(
         for f in range(n_frames)
     ]
     return imgs, poses, lms, cam
+
+
+def window_problem(seed=0, W=5, L=200, noise=0.0, pose_pert=0.02,
+                   lm_pert=0.10, O=256):
+    """A window-BA problem with known answer: `L` random landmarks seen
+    from `W` forward-moving poses (at most `O` observations per keyframe),
+    every pose but the first and every landmark perturbed.
+
+    Returns (prob: ba.window.BAProblem, cam, poses_gt, landmarks_gt)."""
+    import jax.numpy as jnp
+
+    from ya_vo_tpu.ba import window
+    from ya_vo_tpu.core import lie
+
+    rng = np.random.default_rng(seed)
+    cam = kitti_camera()
+    lms = random_landmarks(L, seed=seed)
+    poses = forward_trajectory(W, step=0.5)
+    uv, vis = project_tracks(lms, poses, cam, 376, 1241, margin=5)
+    if noise > 0:
+        uv = uv + rng.normal(0, noise, uv.shape).astype(np.float32)
+
+    obs_uv = np.zeros((W, O, 2), np.float32)
+    obs_lm = np.full((W, O), -1, np.int32)
+    obs_valid = np.zeros((W, O), bool)
+    for w in range(W):
+        ids = np.nonzero(vis[w])[0][:O]
+        obs_uv[w, : len(ids)] = uv[w, ids]
+        obs_lm[w, : len(ids)] = ids
+        obs_valid[w, : len(ids)] = True
+
+    poses_pert = poses.copy()
+    for w in range(1, W):
+        xi = rng.normal(0, pose_pert, 6).astype(np.float32)
+        poses_pert[w] = np.asarray(
+            lie.se3_exp(jnp.asarray(xi))) @ poses_pert[w]
+    lms_pert = lms + rng.normal(0, lm_pert, lms.shape).astype(np.float32)
+
+    prob = window.BAProblem(
+        poses=jnp.asarray(poses_pert),
+        pose_valid=jnp.ones(W, bool),
+        landmarks=jnp.asarray(lms_pert),
+        lm_valid=jnp.ones(L, bool),
+        obs_uv=jnp.asarray(obs_uv),
+        obs_lm=jnp.asarray(obs_lm),
+        obs_valid=jnp.asarray(obs_valid),
+    )
+    return prob, cam, poses, lms

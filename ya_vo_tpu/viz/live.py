@@ -1,9 +1,9 @@
-"""Live incremental viewer — the reference's Pangolin thread, TPU-host style.
+"""Live incremental viewer — the reference's Pangolin thread, headless.
 
 The reference runs a Viewer on its own thread that renders the current
 frustum, the keyframe trail and the landmark cloud from a double-buffered
 map snapshot taken under a mutex (reference src/viz.cc:26-78,
-include/viz.hpp:7-39). TPU hosts are headless, so instead of an OpenGL
+include/viz.hpp:7-39). Accelerator hosts are headless, so instead of an OpenGL
 window this serves the same live state over a localhost HTTP endpoint:
 
   * GET /          — a self-contained HTML page (canvas, no external

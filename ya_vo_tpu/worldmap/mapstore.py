@@ -4,7 +4,7 @@ The reference's world model is a shared_ptr/weak_ptr object graph —
 `Map` holds id->Frame / id->MapPoint hash maps under mutexes (reference:
 include/Map.hpp:9-36), landmarks keep observation lists (include/
 MapPoint.hpp:10-28), features weak-link frames to landmarks
-(include/Feature.hpp:9-22). None of that maps to a TPU. Here the map is a
+(include/Feature.hpp:9-22). None of that maps to an accelerator. Here the map is a
 struct of preallocated numpy arrays on the host (SURVEY.md §7.1 "arrays,
 not objects"): landmark slots with alive masks, keyframe pose slots, and
 integer index links. Device stages receive flat array views; the store
